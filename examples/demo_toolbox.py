@@ -19,7 +19,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--n", type=int, default=20)
     p.add_argument("--rank", type=int, default=3)
-    p.add_argument("--platform", default=None, choices=("cpu", "tpu"))
+    p.add_argument("--platform", default=None, choices=("cpu", "gpu"))
     args = p.parse_args(argv)
 
     import jax

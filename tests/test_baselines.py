@@ -174,7 +174,7 @@ def test_sofia_als_fits_masked_cp(rng_key):
 
 
 def test_sofia_mode3_gauss_seidel_matches_rowwise_reference(rng_key):
-    """The TPU form of the temporal sweep (all pinvs batched outside the
+    """The vectorized form of the temporal sweep (all pinvs batched outside the
     scan, 16x unroll) == a direct per-row Python sweep of the reference
     recurrence (`sofia_als.m:100-122`): row t solved against updated rows
     t-1/t-m and old rows t+1/t+m."""

@@ -222,7 +222,7 @@ def test_svt_ref_compat_truncation(rng_key):
 
 
 def test_svt_gram_matches_svd(rng_key):
-    """The TPU-native Gram-eigh SVT path == the SVD path on both aspect
+    """The Gram-eigh SVT path == the SVD path on both aspect
     ratios, including the ref-compat truncation variant."""
     for i, shape in enumerate([(9, 40), (40, 9), (12, 12)]):
         m = jax.random.normal(jax.random.fold_in(rng_key, i), shape)
@@ -546,7 +546,7 @@ def test_rc_fctn_warm_route_small_shape_equals_gram(rng_key):
 
 def test_svt_default_is_svd():
     """r2 advisor (medium): plain svt defaults to the backward-stable SVD
-    path; gram is an explicit opt-in for the TPU hot path."""
+    path; gram is an explicit opt-in for the hot path."""
     import inspect
 
     assert inspect.signature(svt).parameters["method"].default == "svd"
@@ -605,3 +605,20 @@ def test_kron_g_h_equal_full_builds(cores):
     np.testing.assert_allclose(
         np.asarray(kron_h(a, b)), np.asarray(build_h(a, b, "full")), rtol=1e-5, atol=1e-5
     )
+
+
+@pytest.mark.parametrize("method", ["gram", "svd", "lowrank:4"])
+def test_svt_gemms_carry_highest_precision(rng_key, method):
+    """The SVT routes' GEMMs run at full float32 (the Gram-eigh error
+    analysis assumes f32 eps), whatever the backend's default."""
+    highest = jax.lax.Precision.HIGHEST
+    m = jax.random.normal(rng_key, (6, 40))
+    jaxpr = jax.make_jaxpr(lambda m: svt_ref_compat(m, 0.5, method=method))(m)
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    for sub in jaxpr.jaxpr.eqns:
+        inner = getattr(sub.params.get("jaxpr"), "jaxpr", None)
+        if inner is not None:
+            dots += [e for e in inner.eqns if e.primitive.name == "dot_general"]
+    assert dots
+    for eqn in dots:
+        assert eqn.params["precision"] == (highest, highest)

@@ -1,14 +1,20 @@
-"""Roofline accounting models (utils/roofline.py, VERDICT r4 #2)."""
+"""Roofline accounting models and the per-device peak table
+(utils/roofline.py)."""
 
 import math
 
+import pytest
+
 from tritd_tpu.utils.roofline import (
-    HBM_PEAK_GBPS,
+    PEAKS,
     annotate,
     model_for,
+    peaks_for,
     svt_admm_model,
     tritd_model,
 )
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def test_tritd_model_scales_with_tensor_size():
@@ -32,26 +38,50 @@ def test_svt_model_counts_every_cut():
 
 
 def test_annotate_hbm_bound_and_vmem_residency():
-    # chicago (47.8 MB/tensor): working set >> VMEM -> hbm-bound
+    peak = PEAKS[H100]["hbm_gbps"]
+    # chicago (47.8 MB/tensor) at 0.5 ms/iter: hbm-bound against the H100
     row = {}
-    annotate(row, tritd_model((77, 77, 2016), 5), 1.26e-3, "device_rate")
+    annotate(row, tritd_model((77, 77, 2016), 5), 5e-4, "walltime/n_iters",
+             H100)
     r = row["roofline"]
     assert r["roofline_bound"] == "hbm"
     assert 0 < r["pct_hbm_peak"] <= 100
-    assert r["achieved_gbps"] < HBM_PEAK_GBPS
-    # taxi: the r4-measured device rate (151.6 us/iter) implies traffic
-    # beyond HBM peak -> residency/fusion beats the byte model, so the HBM
-    # roof must not be reported as binding
+    assert r["achieved_gbps"] < peak
+    assert r["device_kind"] == H100 and r["peak_hbm_gbps"] == peak
+    assert r["peak_precision"] == "f32" and r["peak_tflops"] == 67.0
+    # sensor (~1.2 MB/tensor) fast enough that the modeled traffic exceeds
+    # the HBM peak: no cache-residency class exists any more — the row
+    # reports the hbm roof and a share above 100%
     row2 = {}
-    annotate(row2, tritd_model((100, 100, 500), 5), 151.6e-6, "device_rate")
+    annotate(row2, tritd_model((54, 4, 1440), 5), 2e-6, "walltime/n_iters",
+             H100)
     r2 = row2["roofline"]
-    assert r2["roofline_bound"] == "vmem-resident(compute)"
+    assert r2["roofline_bound"] == "hbm"
     assert r2["pct_hbm_peak"] > 100
-    # sensor (54*4*1440 ~ 1.2 MB/tensor): structurally VMEM-resident
-    # regardless of the measured rate
+    # at the bf16 peak the ridge moves, the bound does not
     row3 = {}
-    annotate(row3, tritd_model((54, 4, 1440), 5), 1e-3, "device_rate")
-    assert row3["roofline"]["roofline_bound"] == "vmem-resident(compute)"
+    annotate(row3, tritd_model((77, 77, 2016), 5), 5e-4, "walltime/n_iters",
+             H100, precision="bf16")
+    assert row3["roofline"]["peak_tflops"] == 989.0
+    assert row3["roofline"]["pct_flop_peak"] < r["pct_flop_peak"]
+
+
+def test_peak_table_raises_on_unknown_device():
+    assert peaks_for(H100)["tflops"]["tf32"] == 495.0
+    with pytest.raises(KeyError, match="no published peaks"):
+        peaks_for("Unlisted Accelerator")
+    with pytest.raises(KeyError):
+        annotate({}, tritd_model((10, 10, 10), 5), 1e-3, "walltime/n_iters",
+                 "cpu")
+
+
+def test_annotate_compute_bound_row():
+    # a model far above the f32 ridge (~20 FLOP/B) is compute-bound
+    model = {"flops_per_iter": 1e12, "hbm_bytes_per_iter": 1e9}
+    row = {}
+    annotate(row, model, 1.0, "walltime/n_iters", H100)
+    assert row["roofline"]["roofline_bound"] == "compute"
+    assert row["roofline"]["pct_flop_peak"] == pytest.approx(100 / 67, abs=0.01)
 
 
 def test_model_for_dispatch():
@@ -72,5 +102,5 @@ def test_model_for_dispatch():
 
 def test_annotate_none_model():
     row = {}
-    annotate(row, None, 1.0, "walltime/n_iters")
+    annotate(row, None, 1.0, "walltime/n_iters", H100)
     assert row["roofline"] is None

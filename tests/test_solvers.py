@@ -17,6 +17,8 @@ from tritd_tpu.ops.designs import triple_product
 from tritd_tpu.solvers import (
     OutlierConfig,
     TriTDConfig,
+    admm_iteration,
+    init_state,
     tritd_admm,
     tritd_admm_outlier,
     tritd_als,
@@ -264,3 +266,77 @@ def test_admm_bf16_storage_masked_mode(rng_key):
                       storage_dtype="bfloat16")
     res = tritd_admm(prob["y"], cfg, mask=prob["mask"], origin=prob["x"])
     assert float(rre(triple_product(res.a, res.b, res.c), prob["x"])) < 0.12
+
+
+def test_block_semantics_match_reference_equations(rng_key):
+    """The elementwise block must equal the reference's update equations
+    verbatim (`triple_decomp_ADMM.m:41-59`)."""
+    from tritd_tpu.solvers.admm import elementwise_block
+
+    ks = jax.random.split(rng_key, 5)
+    shape = (6, 7, 8)
+    d, l, e, y_l, y_o = (jax.random.normal(k, shape) for k in ks)
+    mu_l, mu_o, lam = 0.3, 0.9, 1.8
+    o, e_new, yl_new, yo_new, nl, no = elementwise_block(
+        d, l, e, y_l, y_o, mu_l, mu_o, lam
+    )
+    r1 = d - l + y_l / mu_l
+    r2 = e - y_o / mu_o
+    o_ref = (mu_l * r1 + mu_o * r2) / (mu_l + mu_o)
+    shifted = o_ref + y_o / mu_o
+    e_ref = jnp.sign(shifted) * jnp.maximum(jnp.abs(shifted) - lam / mu_o, 0.0)
+    np.testing.assert_allclose(np.asarray(o), np.asarray(o_ref), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(e_new), np.asarray(e_ref), rtol=1e-6)
+    np.testing.assert_allclose(
+        np.asarray(yl_new), np.asarray(y_l + mu_l * (d - l - o_ref)), rtol=1e-6
+    )
+    np.testing.assert_allclose(
+        float(nl), float(jnp.sum((d - l - o_ref) ** 2)), rtol=1e-5
+    )
+
+
+def _dot_precisions(jaxpr):
+    """(precision, operand dtype) of every dot_general in a jaxpr, sub-jaxprs
+    (jit, while, cond bodies) included."""
+    found = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            found.append((eqn.params["precision"], eqn.invars[0].aval.dtype))
+        for value in eqn.params.values():
+            for sub in value if isinstance(value, (list, tuple)) else [value]:
+                inner = getattr(sub, "jaxpr", sub)
+                if hasattr(inner, "eqns"):
+                    found += _dot_precisions(inner)
+    return found
+
+
+@pytest.mark.parametrize("variant", ["hadamard", "full"])
+def test_tritd_contractions_carry_highest_precision(rng_key, variant):
+    """Every f32 contraction of an ADMM iteration (Grams, Gram combines,
+    right-hand sides, reconstruction) asks for HIGHEST, so no backend may
+    run it in TF32."""
+    highest = jax.lax.Precision.HIGHEST
+    cfg = TriTDConfig(rank=3, variant=variant)
+    d = jax.random.normal(rng_key, (7, 6, 5))
+    state = init_state(d, cfg, rng_key)
+    jaxpr = jax.make_jaxpr(lambda d, s: admm_iteration(d, s, cfg))(d, state)
+    dots = _dot_precisions(jaxpr.jaxpr)
+    assert len(dots) >= 7  # 3 Grams + 3 RHS + reconstruction, at least
+    for precision, dtype in dots:
+        assert dtype == jnp.float32
+        assert precision == (highest, highest), precision
+
+
+def test_bf16_einsum_opt_in_keeps_narrow_products(rng_key):
+    """einsum_dtype="bfloat16" still asks for bf16 products on the RHS
+    contractions; the Grams and reconstruction stay at HIGHEST."""
+    highest = jax.lax.Precision.HIGHEST
+    cfg = TriTDConfig(rank=3, einsum_dtype="bfloat16")
+    d = jax.random.normal(rng_key, (7, 6, 5))
+    state = init_state(d, cfg, rng_key)
+    jaxpr = jax.make_jaxpr(lambda d, s: admm_iteration(d, s, cfg))(d, state)
+    dots = _dot_precisions(jaxpr.jaxpr)
+    bf16 = [p for p, dt in dots if dt == jnp.bfloat16]
+    f32 = [p for p, dt in dots if dt == jnp.float32]
+    assert bf16 and all(p is None for p in bf16)
+    assert f32 and all(p == (highest, highest) for p in f32)

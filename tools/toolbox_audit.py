@@ -145,7 +145,7 @@ M = {
         "reshape": ("impl", "SpTensor.reshape", "linear-index remap"),
         "scale": ("impl", "SpTensor.scale", ""),
         "size": ("impl", "SpTensor.shape", ""),
-        "spmatrix": ("impl", "SpTensor.spmatrix", "dense matrix (no CSR GEMM on TPU)"),
+        "spmatrix": ("impl", "SpTensor.spmatrix", "dense matrix (no CSR GEMM in XLA)"),
         "squeeze": ("impl", "SpTensor.squeeze", ""),
         "subsasgn": ("impl", "SpTensor.with_set", "replace semantics, host-side"),
         "subsref": ("impl", "SpTensor.__getitem__", "sparse-native single lookup"),

@@ -1,6 +1,6 @@
-"""tritd_tpu — TPU-native robust Triple Tensor Decomposition (TriTD) with ADMM.
+"""tritd_tpu — robust Triple Tensor Decomposition (TriTD) with ADMM, in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework, run on a GPU, with the capabilities of the
 reference MATLAB research code (dangnq2501/Triple-Tensor-Decomposition-with-
 ADMM): factor a corrupted/incomplete 3-way tensor D into a low-rank triple
 product L = TriTD(A, B, C) of three coupled 3-way cores plus a sparse outlier

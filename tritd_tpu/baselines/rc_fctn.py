@@ -42,11 +42,11 @@ def _bipartition_shapes(nway, dims_l):
     return [(d, total // d) for d in dims_l]
 
 
-#: Validated randomized-SVT rank budget for the video bipartition shapes
-#: (4800x4800, 3600x6400 at subdim 20): err_hist within 3.9e-5 of the exact
-#: path over 50 iterations (tools/validate_lowrank_svt.py,
-#: docs/BENCH_NOTES.md), and its budget^2 eigh is 3x cheaper than the 1024
-#: default's.
+#: Randomized-SVT rank budget for the video bipartition shapes (4800x4800,
+#: 3600x6400 at subdim 20): its err_hist stayed within 3.9e-5 of the exact
+#: path over 50 iterations (tools/validate_lowrank_svt.py), and its
+#: budget^2 eigh is 3x cheaper than the 1024 default's. Validated and tuned
+#: on another machine, not yet measured on the H100.
 VIDEO_SVT_BUDGET = 512
 
 
@@ -98,10 +98,8 @@ def _rc_fctn_steps(
 ):
     """Run `n_steps` iterations from absolute iteration `k0` (traced, so one
     compilation serves every chunk). Chunking bounds the wall time of a
-    single dispatch: at the video 4-way shape the bipartition SVTs include a
-    4800x4800 eigh, and a 100-iteration fori_loop in ONE dispatch ran >10
-    min and crashed the TPU worker (measured, round 3); chunked dispatches
-    avoid the watchdog at a cost of ~26 ms RTT per chunk."""
+    single dispatch (at the video 4-way shape the bipartition SVTs include
+    a 4800x4800 eigh), at the cost of one host round trip per chunk."""
     nway = x_noise.shape
     n = len(nway)
     half = n // 2
@@ -125,9 +123,8 @@ def _rc_fctn_steps(
     def body(k, carry, refresh=True):
         """One iteration. `refresh` is a PYTHON bool in warm mode — the
         refresh schedule is compile-time static (block-unrolled below), not
-        a lax.cond: measured on TPU (r4), a traced `k % K == 0` cond around
-        the big eigh executed BOTH branches for some K (warm:4 ran slower
-        than exact gram), so the branch must be resolved at trace time."""
+        a lax.cond, so the big eigh is never a branch that a backend could
+        evaluate eagerly (see ops/svt.py::_warm_apply)."""
         x, y, e, s, p, q, zs, bases, err_hist = carry
         gamma = gamma0 * 1.5**k
         deta = deta0 * 1.5**k
@@ -274,8 +271,8 @@ def rc_fctn_driver_traffic(
     lam = 5000.0 / math.sqrt(max(i, j) * n3 * n4)
     ind = jnp.ones(y4.shape, y.dtype)  # driver quirk: everything marked observed
     # warm route: chunk=25 matches the validated configuration
-    # (tools/validate_warm_svt.py / docs/WARM_SVT_r04.json) and keeps the
-    # block-unrolled program a compile-helper-friendly size.
+    # (tools/validate_warm_svt.py) and keeps the block-unrolled program
+    # small.
     x4, s4, err_hist = rc_fctn(
         y4, lam, ind, origin=origin4, f=0.1, max_iter=max_iter,
         svt_method=svt_method,
@@ -297,8 +294,8 @@ def rc_fctn_driver_video(
 
     Default svt_method="auto": the video bipartitions are square-ish
     (4800x4800, 3600x6400 at subdim 20), where even the Gram trick leaves a
-    ~1 s eigh per bipartition per iteration on a v5e — ~200 s per solve vs
-    the reference's published 50.64 s. "auto" routes those (and only those —
+    4800-wide eigh per bipartition per iteration. "auto" routes those (and
+    only those —
     thin-side >= ops/svt.py LOWRANK_MIN_DIM) to the randomized top-k SVT at
     the validated VIDEO_SVT_BUDGET. Every explicit request, including
     "gram", runs exactly the route it names (resolve_video_svt_method)."""
@@ -308,9 +305,9 @@ def rc_fctn_driver_video(
     origin4 = _split_mode3(origin, n3, n4) if origin is not None else None
     ind = _split_mode3(mask_obs.astype(y.dtype), n3, n4)
     svt_method = resolve_video_svt_method(svt_method)
-    # chunk=25: bounds a single device dispatch well under the TPU worker
-    # watchdog (one 100-iteration dispatch crashed the worker, round 3);
-    # see _rc_fctn_steps docstring.
+    # chunk=25: bounds the wall time of a single device dispatch (see
+    # _rc_fctn_steps). Chosen on another machine; whether the H100 needs it
+    # is not yet measured.
     x4, s4, err_hist = rc_fctn(
         y4, 1.8, ind, origin=origin4, f=0.7, max_iter=max_iter,
         svt_method=svt_method, chunk=25,

@@ -5,7 +5,7 @@ Reference: `other_methods/Low-rank-...-master/lib/compete_methods/
 mode 3 + per-frontal-slice SVT) — vendored in the TT-TRPCA repo and
 exercised by its `Demo_TRPCA.m`; part of the SURVEY §2.3 inventory.
 
-TPU notes: the tubal prox is a batched complex SVD in the FFT domain
+Notes: the tubal prox is a batched complex SVD in the FFT domain
 (vmapped over frontal slices — one batched kernel instead of the MATLAB
 per-slice loop); conjugate symmetry of the real FFT means the result of the
 inverse FFT is real up to roundoff (we take .real like MATLAB's ifft on the

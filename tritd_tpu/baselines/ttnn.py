@@ -10,7 +10,7 @@ l1-shrink the sparse clone Y, closed-form joint (Z, S) solve, dual ascent,
 1.1x penalty growth. Driver preset: lambda=50, f=5, gamma=1e-3, deta=2e-3
 (`traffic_triple_comparison.m:116-120`).
 
-TPU note: the unfoldings here use row-major reshapes; SVT is invariant under
+Note: the unfoldings here use row-major reshapes; SVT is invariant under
 the consistent row/column permutation relating them to MATLAB's column-major
 reshapes, so results are identical.
 """
@@ -148,7 +148,7 @@ def tt_trpca(
 ):
     """Returns (Z low-rank, S sparse, errHist vs origin, n_iters). The
     reference runs the full 100 iterations (its tol check is bypassed,
-    `TT_TRPCA.m:40`). ``svt_method="gram"`` selects the TPU Gram-eigh SVT
+    `TT_TRPCA.m:40`). ``svt_method="gram"`` selects the Gram-eigh SVT
     (see ops/svt.py docstring for the precision trade)."""
     has_origin = origin is not None
     dummy = origin if has_origin else x_noise

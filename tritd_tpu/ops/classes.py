@@ -10,8 +10,8 @@ live as pure functions in :mod:`tritd_tpu.ops` — this module supplies the
 *class* face: operator overloads, methods, and conversions, matching the
 MATLAB method files named in each docstring.
 
-TPU-native design notes
------------------------
+Design notes
+------------
 * Every class is registered as a JAX pytree, so instances flow through
   ``jit`` / ``vmap`` / ``grad`` / ``shard_map`` unchanged; static structure
   (shapes, mode lists) rides in the aux data, arrays are leaves.
@@ -277,7 +277,7 @@ class Tensor:
         """All-modes MTTKRP sequence — ``@tensor/mttkrps.m``. The toolbox
         splits the modes to share partial Khatri-Rao contractions; under XLA
         the per-mode einsums already share the input tensor in HBM and fuse
-        their transposes, so the N independent calls are the TPU-native
+        their transposes, so the N independent calls are the native
         form."""
         us = [jnp.asarray(u) for u in factors]
         return [_dense_mttkrp(self.data, us, n) for n in range(self.ndim)]
@@ -640,7 +640,7 @@ class SpTensor:
 
     def spmatrix(self) -> jnp.ndarray:
         """2-way sparse → matrix — ``@sptensor/spmatrix.m``. Returns the
-        assembled dense matrix: XLA/TPU has no CSR GEMM, so the dense form
+        assembled dense matrix: XLA has no CSR GEMM, so the dense form
         IS the native matrix type here."""
         if self.ndim != 2:
             raise ValueError("spmatrix requires a 2-way sptensor")

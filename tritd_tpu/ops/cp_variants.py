@@ -4,7 +4,7 @@ multiplicative updates), ``cp_nmu`` (nonnegative Lee-Seung updates),
 ``cp_arls`` (randomized least squares), ``cp_opt`` / ``cp_wopt`` (direct /
 weighted optimization) and ``gcp_opt`` (generalized losses).
 
-TPU-first design decisions, shared across all of them:
+Design decisions, shared across all of them:
 
 * Khatri-Rao products are never materialized — the dense MTTKRP is one fused
   einsum (:func:`tritd_tpu.ops.decomp.mttkrp`); ``cp_arls`` gathers sampled
@@ -426,7 +426,7 @@ def gcp_opt(
     semantics (loss table above = its 'type' option; `mask` = its missing-
     data weight tensor). Dense path fits with Adam (the toolbox's dense
     default is L-BFGS-B and its stochastic default Adam; Adam here covers
-    both at TPU-friendly fixed iteration shapes), lower-bounded losses are
+    both at jit-friendly fixed iteration shapes), lower-bounded losses are
     enforced by projection after each step, exactly like the toolbox's
     bound constraint."""
     if loss not in GCP_LOSSES:

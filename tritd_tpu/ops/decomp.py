@@ -4,7 +4,7 @@ algorithm surface (SURVEY §2.3: "CP/Tucker algorithms", `Contents.m:17-50`).
 The reference vendors Tensor Toolbox twice and its drivers exercise only the
 class surface (:mod:`tritd_tpu.ops.kruskal`); these are the headline
 algorithms of that library (`cp_als.m`, `tucker_als.m`, `hosvd.m`) rebuilt
-TPU-first: N-way generic, jit'd `lax.while_loop` bodies, MTTKRP as one fused
+for XLA: N-way generic, jit'd `lax.while_loop` bodies, MTTKRP as one fused
 einsum per mode (never materializing the Khatri-Rao product), and
 QR/eigh-based orthonormal bases instead of host-side SVDs where possible.
 
@@ -144,7 +144,7 @@ def cp_als(
 
 def _leading_basis(x: jnp.ndarray, mode: int, rank: int) -> jnp.ndarray:
     """Top-`rank` left singular vectors of unfold(x, mode), via eigh on the
-    (n_mode, n_mode) Gram — TPU-friendly (no SVD of the fat unfolding)."""
+    (n_mode, n_mode) Gram (no SVD of the fat unfolding)."""
     n = x.ndim
     perm = (mode,) + tuple(ax for ax in range(n) if ax != mode)
     xm = jnp.transpose(x, perm).reshape(x.shape[mode], -1)

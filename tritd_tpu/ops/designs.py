@@ -37,9 +37,18 @@ the explicit-Kronecker baseline the paper claims speedups against
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 Variant = str  # "hadamard" | "full"
+
+#: Precision of every float32 contraction on the TriTD path (here and in
+#: :mod:`tritd_tpu.ops.normal_eq`). A GPU may otherwise run f32 dots in TF32
+#: (~3 decimal digits), and the C solve's ridge is only 1e-9: on an H100,
+#: TF32 put taxi's err_hist 8.4e-3 from the float64 emulator and highway's
+#: 6.0e-3 from the CPU solve, both far past their bars. Full f32 costs
+#: 13-14% of the solve time there (PERF.md, precision).
+PRECISION = jax.lax.Precision.HIGHEST
 
 VARIANTS = ("hadamard", "full")
 
@@ -60,9 +69,9 @@ def build_f(b: jnp.ndarray, c: jnp.ndarray, variant: Variant = "hadamard") -> jn
     r, n2, _ = b.shape
     _, _, n3 = c.shape
     if variant == "hadamard":
-        f4 = jnp.einsum("qjs,qst->qstj", b, c)
+        f4 = jnp.einsum("qjs,qst->qstj", b, c, precision=PRECISION)
     else:
-        f4 = jnp.einsum("pjs,pqt->qstj", b, c)
+        f4 = jnp.einsum("pjs,pqt->qstj", b, c, precision=PRECISION)
     return f4.reshape(r * r, n3 * n2)
 
 
@@ -76,9 +85,9 @@ def build_g(a: jnp.ndarray, c: jnp.ndarray, variant: Variant = "hadamard") -> jn
     n1, r, _ = a.shape
     _, _, n3 = c.shape
     if variant == "hadamard":
-        g4 = jnp.einsum("ips,pst->psti", a, c)
+        g4 = jnp.einsum("ips,pst->psti", a, c, precision=PRECISION)
     else:
-        g4 = jnp.einsum("iqs,pqt->psti", a, c)
+        g4 = jnp.einsum("iqs,pqt->psti", a, c, precision=PRECISION)
     return g4.reshape(r * r, n3 * n1)
 
 
@@ -92,9 +101,9 @@ def build_h(a: jnp.ndarray, b: jnp.ndarray, variant: Variant = "hadamard") -> jn
     n1, r, _ = a.shape
     _, n2, _ = b.shape
     if variant == "hadamard":
-        h4 = jnp.einsum("ipq,pjq->pqji", a, b)
+        h4 = jnp.einsum("ipq,pjq->pqji", a, b, precision=PRECISION)
     else:
-        h4 = jnp.einsum("iqs,pjs->pqji", a, b)
+        h4 = jnp.einsum("iqs,pjs->pqji", a, b, precision=PRECISION)
     return h4.reshape(r * r, n2 * n1)
 
 
@@ -107,16 +116,12 @@ def triple_product(
     full:     L[i,j,t] = sum_{p,q,s} A[i,q,s] B[p,j,s] C[p,q,t]
 
     Computed as one (n1, r^2) x (r^2, n2*n3) GEMM after a cheap r^2-scale
-    pre-contraction, the MXU-friendly layout of
+    pre-contraction, the layout of
     `fast_robust_triple_tensor/triple_product.m:6-7`.
 
     The pre-contraction emits W with (j, t) column order so the GEMM output
-    reshapes STRAIGHT to (n1, n2, n3): the previous (t, j) order (chosen to
-    mirror unfold/build_f columns) forced an (n1, n3, n2) transpose that
-    measured 10x the GEMM's own cost on TPU (sensor shape: 46 -> 4.5 us;
-    strided small-minor-dim relayouts are the worst case for the VPU).
-    The contraction order — and therefore every bit of the result — is
-    unchanged.
+    reshapes straight to (n1, n2, n3), with no (n1, n3, n2) transpose of
+    the full tensor afterwards.
     """
     _check_variant(variant)
     n1, r, _ = a.shape
@@ -124,11 +129,11 @@ def triple_product(
     _, _, n3 = c.shape
     if variant == "hadamard":
         # W[(q,s), (j,t)] = B[q,j,s] * C[q,s,t]  — cost O(r^2 n2 n3)
-        w = jnp.einsum("qjs,qst->qsjt", b, c).reshape(r * r, n2 * n3)
+        w = jnp.einsum("qjs,qst->qsjt", b, c, precision=PRECISION).reshape(r * r, n2 * n3)
     else:
         # W[(q,s), (j,t)] = sum_p B[p,j,s] C[p,q,t]  — cost O(r^3 n2 n3)
-        w = jnp.einsum("pjs,pqt->qsjt", b, c).reshape(r * r, n2 * n3)
-    l1 = a.reshape(n1, r * r) @ w  # O(n1 n2 n3 r^2) GEMM on the MXU
+        w = jnp.einsum("pjs,pqt->qsjt", b, c, precision=PRECISION).reshape(r * r, n2 * n3)
+    l1 = jnp.matmul(a.reshape(n1, r * r), w, precision=PRECISION)  # O(n1 n2 n3 r^2)
     return l1.reshape(n1, n2, n3)
 
 
@@ -140,8 +145,8 @@ def triple_product_naive(
     `fast_robust_triple_tensor/test.m:142-160`)."""
     _check_variant(variant)
     if variant == "hadamard":
-        return jnp.einsum("iqs,qjs,qst->ijt", a, b, c)
-    return jnp.einsum("iqs,pjs,pqt->ijt", a, b, c)
+        return jnp.einsum("iqs,qjs,qst->ijt", a, b, c, precision=PRECISION)
+    return jnp.einsum("iqs,pjs,pqt->ijt", a, b, c, precision=PRECISION)
 
 
 def kron_f(b: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
@@ -155,7 +160,7 @@ def kron_f(b: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
     # F[(q,s),(t,j)] = sum_p B[p,j,s] C[p,q,t]
     bm = b.transpose(2, 1, 0).reshape(r * n2, r)  # [(s,j), p]
     cm = c.transpose(0, 1, 2).reshape(r, r * n3)  # [p, (q,t)]
-    f = bm @ cm  # [(s,j), (q,t)]
+    f = jnp.matmul(bm, cm, precision=PRECISION)  # [(s,j), (q,t)]
     f = f.reshape(r, n2, r, n3)  # [s, j, q, t]
     return f.transpose(2, 0, 3, 1).reshape(r * r, n3 * n2)
 
@@ -167,7 +172,7 @@ def kron_g(a: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
     _, _, n3 = c.shape
     am = a.transpose(2, 0, 1).reshape(r * n1, r)  # [(s,i), q]
     cm = c.transpose(1, 0, 2).reshape(r, r * n3)  # [q, (p,t)]
-    g = am @ cm  # [(s,i), (p,t)]
+    g = jnp.matmul(am, cm, precision=PRECISION)  # [(s,i), (p,t)]
     g = g.reshape(r, n1, r, n3)  # [s, i, p, t]
     return g.transpose(2, 0, 3, 1).reshape(r * r, n3 * n1)
 
@@ -179,6 +184,6 @@ def kron_h(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     _, n2, _ = b.shape
     am = a.transpose(1, 0, 2).reshape(r * n1, r)  # [(q,i), s]
     bm = b.transpose(2, 0, 1).reshape(r, r * n2)  # [s, (p,j)]
-    h = am @ bm  # [(q,i), (p,j)]
+    h = jnp.matmul(am, bm, precision=PRECISION)  # [(q,i), (p,j)]
     h = h.reshape(r, n1, r, n2)  # [q, i, p, j]
     return h.transpose(2, 0, 3, 1).reshape(r * r, n2 * n1)

@@ -1,6 +1,6 @@
 """Mode-n matricization (unfold) and its inverse (fold) for 3-way tensors.
 
-TPU-native counterpart of the reference's ``unfold`` kernel
+Counterpart of the reference's ``unfold`` kernel
 (`fast_robust_triple_tensor/unfold.m:1-14`). The reference uses MATLAB
 column-major reshapes; here we fix ONE documented row-major convention and use
 it consistently everywhere, so all downstream identities (design matrices,

@@ -40,7 +40,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from .designs import _check_variant
+from .designs import PRECISION, _check_variant
 
 
 # ----------------------------------------------------------------------------
@@ -52,21 +52,21 @@ def gram_a(a: jnp.ndarray) -> jnp.ndarray:
     """GramA[(p,q),(p',q')] = sum_i A[i,p,q] A[i,p',q'] — (r^2, r^2)."""
     n1, r, _ = a.shape
     af = a.reshape(n1, r * r)
-    return af.T @ af
+    return jnp.matmul(af.T, af, precision=PRECISION)
 
 
 def gram_b(b: jnp.ndarray) -> jnp.ndarray:
     """GramB[(q,s),(q',s')] = sum_j B[q,j,s] B[q',j,s'] — (r^2, r^2)."""
     r, n2, _ = b.shape
     bm = b.transpose(0, 2, 1).reshape(r * r, n2)
-    return bm @ bm.T
+    return jnp.matmul(bm, bm.T, precision=PRECISION)
 
 
 def gram_c(c: jnp.ndarray) -> jnp.ndarray:
     """GramC[(q,s),(q',s')] = sum_t C[q,s,t] C[q',s',t] — (r^2, r^2)."""
     r, _, n3 = c.shape
     cm = c.reshape(r * r, n3)
-    return cm @ cm.T
+    return jnp.matmul(cm, cm.T, precision=PRECISION)
 
 
 # ----------------------------------------------------------------------------
@@ -103,13 +103,13 @@ def combine_grams(
     gc4 = gc.reshape(r, r, r, r) if gc is not None else None  # [p,q,p',q']
     if mode == 1:
         # F F^T[(q,s),(q',s')] = sum_{p,p'} GB[p,s,p',s'] GC[p,q,p',q']
-        k = jnp.einsum("psPS,pqPQ->qsQS", gb4, gc4)
+        k = jnp.einsum("psPS,pqPQ->qsQS", gb4, gc4, precision=PRECISION)
     elif mode == 2:
         # G G^T[(p,s),(p',s')] = sum_{q,q'} GA[q,s,q',s'] GC[p,q,p',q']
-        k = jnp.einsum("qsQS,pqPQ->psPS", ga4, gc4)
+        k = jnp.einsum("qsQS,pqPQ->psPS", ga4, gc4, precision=PRECISION)
     elif mode == 3:
         # H H^T[(p,q),(p',q')] = sum_{s,s'} GA[q,s,q',s'] GB[p,s,p',s']
-        k = jnp.einsum("qsQS,psPS->pqPQ", ga4, gb4)
+        k = jnp.einsum("qsQS,psPS->pqPQ", ga4, gb4, precision=PRECISION)
     else:
         raise ValueError(f"mode must be 1, 2 or 3, got {mode}")
     return k.reshape(r * r, r * r)
@@ -145,7 +145,8 @@ def rhs_mode(
     einsum_dtype: optional lower-precision input dtype (e.g. bfloat16) for
     the O(n^3 r^2) contraction — accumulation stays float32 via
     preferred_element_type, trading ~3 mantissa decimal digits on the RHS
-    for MXU throughput. The Grams/solves always stay float32."""
+    for throughput. The Grams/solves always stay float32, and without it
+    the contraction runs at :data:`PRECISION`."""
     _check_variant(variant)
     r = a.shape[1]
     # Output in the FACTOR dtype: x may arrive pre-cast to the low-precision
@@ -156,6 +157,8 @@ def rhs_mode(
     # down-cast (the bf16 MXU knob), else the factor dtype itself — a
     # hard-coded float32 here would silently truncate float64 runs.
     acc_dtype = jnp.float32 if einsum_dtype is not None else out_dtype
+    # the bf16 opt-in asks for narrow products; everything else is full f32
+    prec = None if einsum_dtype is not None else PRECISION
     if einsum_dtype is not None:
         x = x.astype(einsum_dtype)
         a = a.astype(einsum_dtype)
@@ -163,20 +166,20 @@ def rhs_mode(
         c = c.astype(einsum_dtype)
     if variant == "hadamard":
         if mode == 1:
-            rhs = jnp.einsum("ijt,qjs,qst->iqs", x, b, c, optimize="optimal", preferred_element_type=acc_dtype)
+            rhs = jnp.einsum("ijt,qjs,qst->iqs", x, b, c, optimize="optimal", preferred_element_type=acc_dtype, precision=prec)
         elif mode == 2:
-            rhs = jnp.einsum("ijt,ips,pst->jps", x, a, c, optimize="optimal", preferred_element_type=acc_dtype)
+            rhs = jnp.einsum("ijt,ips,pst->jps", x, a, c, optimize="optimal", preferred_element_type=acc_dtype, precision=prec)
         elif mode == 3:
-            rhs = jnp.einsum("ijt,ipq,pjq->tpq", x, a, b, optimize="optimal", preferred_element_type=acc_dtype)
+            rhs = jnp.einsum("ijt,ipq,pjq->tpq", x, a, b, optimize="optimal", preferred_element_type=acc_dtype, precision=prec)
         else:
             raise ValueError(f"mode must be 1, 2 or 3, got {mode}")
     else:
         if mode == 1:
-            rhs = jnp.einsum("ijt,pjs,pqt->iqs", x, b, c, optimize="optimal", preferred_element_type=acc_dtype)
+            rhs = jnp.einsum("ijt,pjs,pqt->iqs", x, b, c, optimize="optimal", preferred_element_type=acc_dtype, precision=prec)
         elif mode == 2:
-            rhs = jnp.einsum("ijt,iqs,pqt->jps", x, a, c, optimize="optimal", preferred_element_type=acc_dtype)
+            rhs = jnp.einsum("ijt,iqs,pqt->jps", x, a, c, optimize="optimal", preferred_element_type=acc_dtype, precision=prec)
         elif mode == 3:
-            rhs = jnp.einsum("ijt,iqs,pjs->tpq", x, a, b, optimize="optimal", preferred_element_type=acc_dtype)
+            rhs = jnp.einsum("ijt,iqs,pjs->tpq", x, a, b, optimize="optimal", preferred_element_type=acc_dtype, precision=prec)
         else:
             raise ValueError(f"mode must be 1, 2 or 3, got {mode}")
     n_mode = rhs.shape[0]
@@ -201,8 +204,8 @@ def gram_and_rhs(
 
 # ----------------------------------------------------------------------------
 # Ridge solve — replaces the reference's SVD-based `pinv(K + alpha I)`
-# (`triple_decomp_ADMM.m:77-78,86,93`) with an SPD Cholesky solve (TPU native;
-# no SVD on the hot path). `pinv` and `lstsq` kept as compat fallbacks for
+# (`triple_decomp_ADMM.m:77-78,86,93`) with an SPD Cholesky solve (no SVD
+# on the hot path). `pinv` and `lstsq` kept as compat fallbacks for
 # near-singular unridged systems.
 # ----------------------------------------------------------------------------
 
@@ -229,7 +232,7 @@ def ridge_solve(
         # Solve K Z = rhs^T, answer = Z^T  (K symmetric).
         return jax.scipy.linalg.cho_solve(cho, rhs.T).T
     if method == "pinv":
-        return rhs @ jnp.linalg.pinv(kr)
+        return jnp.matmul(rhs, jnp.linalg.pinv(kr), precision=PRECISION)
     if method == "lstsq":
         return jnp.linalg.lstsq(kr, rhs.T)[0].T
     raise ValueError(f"method must be one of {SOLVE_METHODS}, got {method!r}")

@@ -1,4 +1,4 @@
-"""TPU-native equivalents of the reference's two MEX proximal kernels.
+"""JAX equivalents of the reference's two MEX proximal kernels.
 
 The only native code in the reference lives in the TT-TRPCA vendored repo's
 proximal-operator library (SURVEY §2.4):

@@ -1,7 +1,7 @@
 """Sparse (COO) tensor operations — the Tensor Toolbox ``@sptensor`` /
 ``@sptenmat`` class surface (SURVEY §2.3: class dirs ``@sptensor`` 3,732 LoC,
 ``@sptenmat`` 737 LoC of ``other_methods/tensor_toolbox-v3.1``), rebuilt
-TPU-first.
+for XLA.
 
 Design: a sparse tensor is the functional triple ``(vals, coords, shape)``
 with ``vals: (nnz,)`` and ``coords: (nnz, N)`` int32 — *static* nnz, so every

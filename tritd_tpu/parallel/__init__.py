@@ -1,5 +1,5 @@
 """Multi-chip sharding layer: mesh helpers, sharded ADMM, multi-host
-bootstrap (jax.distributed over DCN; see parallel/distributed.py)."""
+bootstrap (jax.distributed across hosts; see parallel/distributed.py)."""
 
 from .mesh import make_mesh, slab_sharding, replicated, pad_to_multiple
 from .sharded_admm import tritd_admm_sharded, tritd_admm_auto, tritd_admm_batch_sharded

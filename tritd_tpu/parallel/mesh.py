@@ -1,9 +1,10 @@
 """Device-mesh helpers for multi-chip TriTD.
 
 The reference is single-process MATLAB (SURVEY §2.5 — no parallelism of any
-kind); the TPU-native scaling design shards the data tensor along mode-1
-slabs (axis name "slab") and optionally batches independent problems along a
-"data" axis. Collectives ride ICI via jax.lax.psum inside shard_map.
+kind); the scaling design shards the data tensor along mode-1 slabs (axis
+name "slab") and optionally batches independent problems along a "data"
+axis. Collectives are jax.lax.psum inside shard_map. The mesh follows the
+algorithm alone: the cards of one host reach each other at one rate.
 """
 
 from __future__ import annotations

@@ -388,18 +388,31 @@ def _batch_sharded_run(
         lambda k: init_factors(k, (n1p, *d_batch.shape[2:]), cfg.rank, dtype)
     )(keys)
 
-    body = jax.vmap(
-        functools.partial(
-            _sharded_solver_body,
-            cfg=cfg,
-            axis_name=slab_axis,
-            shard_mode=1,
-            has_mask=has_mask,
-            has_origin=has_origin,
-        ),
-        # dummies (replicated, unused) are passed unbatched
-        in_axes=(0, 0, 0, 0, 0 if has_mask else None, 0 if has_origin else None),
+    solve = functools.partial(
+        _sharded_solver_body,
+        cfg=cfg,
+        axis_name=slab_axis,
+        shard_mode=1,
+        has_mask=has_mask,
+        has_origin=has_origin,
     )
+
+    def body(d, a0, b0, c0, mask, origin):
+        # The local entries run one after another, each as the unbatched
+        # solver program. Under vmap the O(n^3 r^2) RHS contractions become
+        # batched GEMMs, which cuBLAS accumulates over their n2*n3-long
+        # contraction about 20x less accurately; with the C solve's 1e-9
+        # ridge that drove a video problem to NaN on an H100.
+        def one(xs):
+            d_i, a_i, b_i, c_i, m_i, o_i = xs
+            return solve(d_i, a_i, b_i, c_i,
+                         mask if m_i is None else m_i,
+                         origin if o_i is None else o_i)
+
+        # dummies (replicated, unused) stay out of the mapped operands
+        return jax.lax.map(one, (d, a0, b0, c0,
+                                 mask if has_mask else None,
+                                 origin if has_origin else None))
     tensor_spec = P(data_axis, slab_axis)
     mask_spec = tensor_spec if has_mask else P()
     origin_spec = tensor_spec if has_origin else P()
@@ -441,8 +454,9 @@ def tritd_admm_batch_sharded(
 ) -> TriTDResult:
     """Data-parallel batch of independent TriTD problems (e.g. the four CDnet
     sequences, BASELINE.json config 5) with each problem's mode-1 slabs
-    sharded across the "slab" axis — DP x TP on a 2-D mesh. Batch entries run
-    their own early-stop via the vmapped while_loop. Per-entry masks
+    sharded across the "slab" axis — DP x TP on a 2-D mesh. The entries held
+    by one card are solved one after another, each with its own early stop,
+    so each follows its single-problem trajectory. Per-entry masks
     (cfg.masked) and origins (oracle rre_hist) are supported like in
     :func:`tritd_admm_sharded`."""
     if key is None:

@@ -1,4 +1,4 @@
-// Native proximal kernels — TPU-framework runtime layer.
+// Native proximal kernels — the framework's host runtime layer.
 //
 // The reference's only native code is two MEX kernels in the TT-TRPCA
 // vendored repo (SURVEY §2.4):

@@ -16,7 +16,7 @@ exactly (two-constraint ADMM on X = L + O, O = E):
     err[k] = (||D-L-O|| + ||O-E||) / ||D||
     stop when |err[k] - err[k-1]| < tol * err[k-1]
 
-TPU-native differences (not semantic ones):
+Implementation differences (not semantic ones):
   * the mode solves use the Kronecker-free Hadamard-of-Grams normal
     equations (:mod:`tritd_tpu.ops.normal_eq`) — F/G/H never materialize;
   * pinv(K + alpha I) becomes an SPD Cholesky solve (pinv/lstsq compat flags);
@@ -26,9 +26,9 @@ TPU-native differences (not semantic ones):
     current L + O estimate each iteration (config.masked).
 
 The whole iteration is ~6 einsum/GEMMs of O(n1 n2 n3 r^2) + 5 elementwise
-O(n1 n2 n3) sweeps + 3 (r^2)^3 Cholesky solves. XLA fuses the elementwise
-chain; the optional Pallas kernel (ops/pallas_kernels.py) fuses it with the
-residual-norm reductions into a single HBM pass.
+O(n1 n2 n3) sweeps + 3 (r^2)^3 Cholesky solves. The elementwise chain and
+its two residual-norm reductions are plain jnp (:func:`elementwise_block`),
+left to XLA to fuse.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ import jax.numpy as jnp
 
 from ..ops import designs, normal_eq
 from ..ops.fold import core_a_from_mat, core_b_from_mat, core_c_from_mat
-from ..ops.pallas_kernels import elementwise_block
+from ..ops.shrinkage import soft_threshold
 from .base import TriTDConfig, TriTDResult, TriTDState
 
 
@@ -65,6 +65,34 @@ def init_factors(
     b = jax.random.normal(kb, (rank, n2, rank), dtype)
     c = jax.random.normal(kc, (rank, rank, n3), dtype)
     return a, b, c
+
+
+def elementwise_block(d, l, e, y_l, y_o, mu_l, mu_o, lam,
+                      compute_dtype=None, store_dtype=None):
+    """O averaging, E shrinkage, dual ascent and the two squared residual
+    norms (`triple_decomp_ADMM.m:41-59`). Returns
+    (o, e_new, y_l_new, y_o_new, ||res_l||^2, ||res_o||^2).
+
+    compute_dtype/store_dtype support the narrow-storage mode
+    (cfg.storage_dtype): inputs upcast on load, the four tensor outputs
+    downcast on store, norms stay in compute_dtype."""
+    if compute_dtype is not None:
+        d, l, e, y_l, y_o = (x.astype(compute_dtype) for x in (d, l, e, y_l, y_o))
+    r1 = d - l + y_l / mu_l
+    r2 = e - y_o / mu_o
+    o = (mu_l * r1 + mu_o * r2) / (mu_l + mu_o)
+    e_new = soft_threshold(o + y_o / mu_o, lam / mu_o)
+    res_l = d - l - o
+    res_o = o - e_new
+    y_l_new = y_l + mu_l * res_l
+    y_o_new = y_o + mu_o * res_o
+    nl = jnp.sum(res_l * res_l)
+    no = jnp.sum(res_o * res_o)
+    if store_dtype is not None:
+        o, e_new, y_l_new, y_o_new = (
+            x.astype(store_dtype) for x in (o, e_new, y_l_new, y_o_new)
+        )
+    return o, e_new, y_l_new, y_o_new, nl, no
 
 
 def update_factors(
@@ -131,13 +159,11 @@ def admm_iteration(
     a, b, c = update_factors(t, a, b, c, cfg)
     l = designs.triple_product(a, b, c, variant=cfg.variant)
 
-    # 2) O averaging, 3) E shrinkage, 4) dual ascent + residual norms,
-    # fused into one HBM pass on TPU (ops/pallas_kernels.py)
+    # 2) O averaging, 3) E shrinkage, 4) dual ascent + residual norms
     sd = cfg.jnp_storage_dtype()
     narrow = sd != cfg.jnp_dtype()
-    use_pallas = cfg.use_pallas and jax.default_backend() == "tpu" and not narrow
     o, e, y_l, y_o, sq_l, sq_o = elementwise_block(
-        d, l, e, y_l, y_o, mu_l, mu_o, cfg.lambda_l1, use_pallas=use_pallas,
+        d, l, e, y_l, y_o, mu_l, mu_o, cfg.lambda_l1,
         compute_dtype=cfg.jnp_dtype() if narrow else None,
         store_dtype=sd if narrow else None,
     )
@@ -147,9 +173,9 @@ def admm_iteration(
     mu_l = jnp.minimum(mu_l * cfg.rho, mu_cap)
     mu_o = jnp.minimum(mu_o * cfg.rho, mu_cap)
 
-    # 6) T for the next iteration, fused by XLA into the elementwise block
-    # above (d, o, y_l are live in its registers) — saves 3 full-tensor
-    # reads per iteration vs rebuilding T at the top of the next one.
+    # 6) T for the next iteration, built here so XLA can fuse it into the
+    # elementwise block above (d, o, y_l are already being read) instead of
+    # re-reading three full tensors at the top of the next iteration.
     # Masked mode rebuilds T from the freshly imputed D instead, so the
     # carried value would be dead weight (one extra elementwise pass plus
     # an (n1,n2,n3) HBM carry): pass the state through unchanged.
@@ -207,7 +233,7 @@ def init_state(
     zeros = jnp.zeros(d.shape, cfg.jnp_storage_dtype())
     # histories padded to a multiple of cfg.unroll so an unrolled block can
     # overshoot max_iter by up to unroll-1 without out-of-bounds scatters
-    # (which would silently clamp onto the last entry on TPU)
+    # (which XLA silently clamps onto the last entry)
     hist_len = -(-cfg.max_iter // cfg.unroll) * cfg.unroll
     nan_hist = jnp.full((hist_len,), jnp.nan, dtype)
     # T_0 = D - 0 + 0/mu = D (stored in the carried-t dtype when set).

@@ -36,9 +36,6 @@ class TriTDConfig:
                                     # L + O each iteration (extension; the
                                     # reference's triple_ADMM_masked is
                                     # absent — `traffic_triple_comparison.m:53`)
-    use_pallas: bool = False        # optional Pallas elementwise kernel; XLA's
-                                    # own fusion already runs this block at
-                                    # ~80% of HBM peak (see ops/pallas_kernels)
     disp: bool = False              # print residuals every 10 iterations via
                                     # jax.debug.print — the reference's
                                     # opts.disp/fprintf (`:60-62`)

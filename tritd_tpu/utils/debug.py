@@ -1,6 +1,6 @@
 """Numerical-debugging helpers (SURVEY §5 race-detection/sanitizer row).
 
-The reference is single-threaded MATLAB with no sanitizers; the TPU-native
+The reference is single-threaded MATLAB with no sanitizers; the JAX
 equivalents are jit purity + NaN trapping + deterministic collectives (races
 are structurally impossible under jit/shard_map — every reduction order is
 fixed at compile time). These helpers switch the relevant JAX debug modes.

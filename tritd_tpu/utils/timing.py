@@ -57,7 +57,7 @@ class PhaseTimer:
 @contextlib.contextmanager
 def profiler_trace(log_dir: str = "/tmp/tritd_profile"):
     """jax.profiler trace context — open the result with TensorBoard/XProf.
-    The TPU-native replacement for tic/toc-level observability (SURVEY §5)."""
+    The replacement for tic/toc-level observability (SURVEY §5)."""
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir
